@@ -1,13 +1,11 @@
-"""Shared example-script setup: backend selection, fixture paths, out dir.
+"""Shared example-script setup: logging, fixture paths, out dir.
 
-Importing this module BEFORE gmat_tpu pins the deterministic CPU (x64)
-backend unless GMAT_TPU_EXAMPLES_TPU=1 — the exact statistics are float64
-and golden-matched on CPU (see CLAUDE.md / config.py numeric policy).
+The examples run on JAX's default device; pick the platform with
+`JAX_PLATFORMS` (e.g. `JAX_PLATFORMS=cpu` for the CPU).
 """
 from __future__ import annotations
 
 import logging
-import os
 import shutil
 import sys
 from pathlib import Path
@@ -15,11 +13,6 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 DATA = REPO / "tests" / "data"
 MOUSE_LONG = DATA / "mouse_long"
-
-if not os.environ.get("GMAT_TPU_EXAMPLES_TPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 logging.basicConfig(level=logging.INFO, stream=sys.stdout,
                     format="%(levelname)s %(name)s: %(message)s")

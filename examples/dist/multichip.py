@@ -4,7 +4,7 @@ The reference's only multi-machine story is manual `parallel=[N, i]` runs
 merged by file concatenation (README.md:125-204). Here the same three hot
 phases run sharded over a `jax.sharding.Mesh` with XLA collectives instead:
 
-  - additive GRM: genotype columns sharded, partial M·Mᵀ psum'd over ICI
+  - additive GRM: genotype columns sharded, partial M·Mᵀ summed with one psum
   - effect screen: interleaved anchor blocks per device, deterministic
     hit merge
   - exact scan tile: anchors data-parallel over the mesh
@@ -82,7 +82,7 @@ remma_epiAA_approx(pheno, bed, [ag, ag * ag], var_com, p_cut=1e-4,
 print("meshed approx pipeline rows:",
       sum(1 for _ in open(out / "epiAA_meshed")) - 1)
 
-# 5) multi-host: on a TPU pod every process calls
-#     mesh = gmat_tpu.dist.initialize_multihost()
+# 5) multi-host: on a cluster every process calls
+#     mesh = gmat_tpu.dist.initialize_multihost(coordinator, n_proc, rank)
 # once at startup and passes the returned global mesh exactly as above
 # (tests/test_multihost.py runs a real 2-process CPU cluster this way).

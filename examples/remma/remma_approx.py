@@ -2,7 +2,7 @@
 
 Mirrors the reference's remma_epiAA_approx path (remma_epiAA_approx.py:10-53):
 (1) exact-test a random pair sample to calibrate the shared effect-variance
-denominator (median), (2) screen all pairs with the f32 MXU GEMM at the
+denominator (median), (2) screen all pairs with the f32 GEMM at the
 calibrated |eff| threshold, (3) exact f64 re-test of the survivors, (4) merge
 approx + exact p columns. Also runs the MAF-stratified variant
 (remma_epiAA_maf_approx.py) and one shard of the manual `parallel=[N, i]`

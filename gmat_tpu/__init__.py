@@ -1,10 +1,10 @@
-"""gmat-tpu: TPU-native genomic multivariate analysis (REMMAX) framework.
+"""gmat-tpu: genomic multivariate analysis (REMMAX) on JAX accelerators.
 
-A ground-up JAX/XLA/Pallas re-design with the capabilities of the reference
-GMAT package (see SURVEY.md): PLINK IO, genomic relationship matrices,
+A ground-up JAX/XLA re-design with the capabilities of the reference GMAT
+package (see SURVEY.md): PLINK IO, genomic relationship matrices,
 multi-GRM weighted EM+AI REML, single-SNP and exhaustive/approximate
 epistasis score tests, and longitudinal (random-regression) GWAS — sharded
-over TPU meshes.
+over device meshes.
 
 The public API mirrors the reference's entry points (reference module in
 parentheses):

@@ -47,14 +47,14 @@ def _load_grms(specs, bed_prefix):
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="gmat-tpu",
-        description="TPU-native REMMAX: GRMs, REML, epistasis scans, longwas",
+        description="REMMAX on JAX: GRMs, REML, epistasis scans, longwas",
     )
     parser.add_argument("-v", "--verbose", action="store_true")
     parser.add_argument(
         "--devices", type=int, default=None, metavar="N",
         help="shard the compute over an N-device mesh (0 = all local "
-             "devices; omit for single-device). For multi-host pods call "
-             "gmat_tpu.dist.initialize_multihost first and pass 0.",
+             "devices; omit for single-device). For multi-host clusters "
+             "call gmat_tpu.dist.initialize_multihost first and pass 0.",
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -166,6 +166,9 @@ def main(argv=None):
         format="%(message)s",
     )
 
+    from gmat_tpu.config import use_compile_cache
+
+    use_compile_cache()
     mesh = None
     if args.devices is not None:
         from gmat_tpu.dist.mesh import make_mesh

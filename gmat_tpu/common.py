@@ -11,7 +11,7 @@ also provides a working `get_logger` with the logging conventions the rest
 of the reference establishes via `logging.basicConfig` (`README.md:95-96`).
 
 The triple products accept numpy or jax arrays (under jit they trace to two
-MXU GEMMs); the diagonal `D` variants take the diagonal as a row vector,
+GEMMs); the diagonal `D` variants take the diagonal as a row vector,
 exactly like the reference.
 """
 from __future__ import annotations

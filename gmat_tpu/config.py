@@ -3,17 +3,15 @@
 The statistical path (REML, exact score tests) follows the reference
 (`/root/reference/gmat/uvlmm/uvlmm_varcom.py`) in using float64 end-to-end so
 variance components and p-values tolerance-match the reference.  The screening
-path (pair-effect GEMMs) runs in float32 with float32 accumulation on the MXU;
-survivors are re-tested exactly, mirroring the reference's own
-screen-then-exact design (`remma_epiAA_approx.py`).
-
-On TPU, float64 is software-emulated and slow; tests run on CPU (x64), while
-`bench.py` uses the fp32 screen kernels on the real chip.
+path (pair-effect GEMMs) runs in full float32 (`scan/screen.py`
+SCREEN_PRECISION); survivors are re-tested exactly, mirroring the
+reference's own screen-then-exact design (`remma_epiAA_approx.py`).
 """
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+from pathlib import Path
 
 import jax
 
@@ -54,6 +52,21 @@ class ScanConfig:
     anchor_tile: int = 128  # anchors per device step in the exact scan
     # screening GEMM block edge is auto-sized (scan/screen.py:_auto_tile);
     # pass tile=... to the screen engines to override
+
+
+def use_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache; returns its directory.
+
+    When `JAX_COMPILATION_CACHE_DIR` is set, JAX already reads it and
+    nothing else is set.  Otherwise the cache goes to `.jax_cache` at the
+    root of the checkout — a fixed path, because the path is part of the
+    cache key and a moving directory never hits."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    path = str(Path(__file__).resolve().parents[1] / ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 def host_device_count() -> int:

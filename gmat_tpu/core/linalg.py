@@ -1,7 +1,7 @@
 """Dense symmetric linear algebra helpers for the mixed-model core.
 
-All Cholesky-based: on TPU `jnp.linalg.inv`'s LU path is slower and less
-stable than a Cholesky solve for the SPD V / XᵀV⁻¹X matrices the REML loop
+All Cholesky-based: `jnp.linalg.inv`'s LU path is slower and less stable
+than a Cholesky solve for the SPD V / XᵀV⁻¹X matrices the REML loop
 produces, and the log-determinant falls out of the factor for free (the
 reference pays a separate slogdet + inv, uvlmm_varcom.py:47-48).
 """
@@ -20,15 +20,14 @@ def chol_inv_logdet(a):
 
 
 def mixed_inv_psd(a, rounds: int = 2):
-    """(A⁻¹, log|A|) for SPD float64 A via an MXU-resident float32 Cholesky
-    plus `rounds` Newton refinement steps with split-precision residuals.
+    """(A⁻¹, log|A|) for SPD float64 A via a float32 Cholesky plus `rounds`
+    Newton refinement steps with split-precision residuals.
 
-    TPU-native twin of `chol_inv_logdet` for the REML O(n³) hot loop
-    (reference uvlmm_varcom.py:44-55).  On this TPU float64 matmuls are
-    emulated at ~f32 accuracy anyway (CLAUDE.md), so the factorization and
-    solves run in true float32 on the MXU (default_matmul_precision
-    "float32" = the 3-pass bf16 scheme) and accuracy is recovered by
-    Newton's method for the inverse,
+    Reduced-precision twin of `chol_inv_logdet` for the REML O(n³) hot
+    loop (reference uvlmm_varcom.py:44-55), selected only by an explicit
+    `precision="mixed"`.  The factorization and solves run in full float32
+    (default_matmul_precision "float32": no TF32/bf16 operand rounding)
+    and accuracy is recovered by Newton's method for the inverse,
 
         W <- W + W (I - A W),
 
@@ -66,8 +65,8 @@ def projection_pieces(vinv, xmat, mixed: bool = False):
     """P = V⁻¹ − V⁻¹X (XᵀV⁻¹X)⁻¹ XᵀV⁻¹ and log|XᵀV⁻¹X|.
 
     Matches the reference's P-matrix construction (uvlmm_varcom.py:50-55).
-    `mixed` routes the tiny XᵀV⁻¹X inverse through `mixed_inv_psd` — on
-    TPU the f64 Cholesky/LU lowerings are emulated-or-absent."""
+    `mixed` routes the tiny XᵀV⁻¹X inverse through `mixed_inv_psd` as
+    well, so the mixed path has no float64 factorization at all."""
     vx = vinv @ xmat
     xvx = xmat.T @ vx
     xvx_inv, ll_xvx = (mixed_inv_psd(xvx) if mixed
@@ -80,6 +79,6 @@ def sym_trace_product(a, b):
     """tr(A·B) for symmetric A, B — elementwise instead of a GEMM+diag.
 
     The reference computes np.trace(np.dot(P, ZGZᵀ)) (uvlmm_varcom.py:66),
-    an O(n³) product for an O(n²) answer; ⟨A, B⟩_F is the TPU-friendly form.
+    an O(n³) product for an O(n²) answer; ⟨A, B⟩_F is the O(n²) form.
     """
     return jnp.sum(a * b)

@@ -3,7 +3,7 @@
 The reference scales across machines by hand: the user starts one process
 per machine with `parallel=[N, i]` and concatenates the output files
 (/root/reference/gmat/remma/remma_epiAA/remma_epiAA.py:126-140,
-README.md:125-204).  The TPU-native replacement is a single SPMD program:
+README.md:125-204).  The replacement here is a single SPMD program:
 every host calls `initialize_multihost(...)` once, gets back a global
 1-D device mesh spanning all hosts' chips, and passes it as the `mesh=`
 argument of any file-level entry point (agmat, remma_epi*, remma_epi*_eff,
@@ -30,9 +30,10 @@ def initialize_multihost(coordinator_address: str | None = None,
                          local_device_ids=None):
     """Initialize JAX's distributed runtime and return the global mesh.
 
-    Thin wrapper over `jax.distributed.initialize` (args are forwarded; on
-    supported platforms such as TPU pods they are auto-detected from the
-    environment and may all be None).  Must be called before any other JAX
+    Thin wrapper over `jax.distributed.initialize` (args are forwarded;
+    where a cluster manager describes the cluster they may all be None,
+    otherwise pass the coordinator's `host:port`, the process count and
+    this process's id).  Must be called before any other JAX
     API on every participating process.  Returns a 1-D
     `jax.sharding.Mesh` over ALL global devices — the object every
     `mesh=`-accepting entry point in this package expects.

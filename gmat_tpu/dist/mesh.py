@@ -6,7 +6,7 @@ Here the same parallel axes map onto a `jax.sharding.Mesh`:
 
 - GRM (K = M Mᵀ / scale): genotype columns (SNPs) sharded over the mesh —
   each device holds full individuals x local SNPs, centers locally, computes
-  a partial Gram matrix, and a `psum` over ICI reduces to the replicated K.
+  a partial Gram matrix, and a `psum` reduces to the replicated K.
   (The reference relies on one machine's BLAS threads, gmatrix.py:63.)
 - Pair scans / screens: the anchor-SNP axis is data-parallel over devices —
   the balanced triangular split of the reference becomes an interleaved
@@ -51,7 +51,7 @@ def _pad_cols(arr: np.ndarray, mult: int) -> np.ndarray:
 
 
 def _sharded_grm(geno: np.ndarray, mesh: Mesh, small_val: float, kind: str):
-    """GRM over the mesh: SNP columns sharded, one psum over ICI.
+    """GRM over the mesh: SNP columns sharded, one psum.
 
     Matches `gmat_tpu.grm.{additive,dominance}_grm` (reference
     gmatrix.py:53-66 / :116-127) numerically: per-column freq/centering is
@@ -116,7 +116,7 @@ def sharded_screen_counts(mat: np.ndarray, pymat: np.ndarray, cut: float,
     partner matrix; the (num_snp-1,) hit-count vector comes back sharded and
     is summed on host.  The screen GEMM S = (A ⊙ py)ᵀ B is identical to the
     single-chip path (scan/screen.py)."""
-    from gmat_tpu.scan.screen import _screen_slack
+    from gmat_tpu.scan.screen import _screen_slack, _sdot
 
     num_snp = mat.shape[1]
     ndev = mesh.devices.size
@@ -143,7 +143,7 @@ def sharded_screen_counts(mat: np.ndarray, pymat: np.ndarray, cut: float,
         def count_tile(start):
             ids = jax.lax.dynamic_slice_in_dim(padded, start, tile)
             a = m[:, ids]
-            s = (a * py[:, None]).T @ m
+            s = _sdot((a * py[:, None]).T, m)
             hit = (jnp.abs(s) > cut) & (j_ids > ids[:, None])
             return jnp.sum(hit, axis=1)
 

@@ -5,9 +5,9 @@ Reference parity:
 - `dgmat_as` -> `gmatrix.py:97-159`
 - `ginbreedcoef` -> `gmatrix.py:162-183`
 
-TPU design: the K = M M^T / scale product is a single large GEMM; on one chip
-it maps straight onto the MXU, on a mesh it is sharded over individuals with a
-`psum` over the SNP axis (see gmat_tpu/dist/mesh.py for the sharded variant).
+Design: the K = M M^T / scale product is a single large GEMM on one device;
+on a mesh its SNP columns are sharded and the partial Gram matrices summed
+with one `psum` (see gmat_tpu/dist/mesh.py for the sharded variant).
 The diagonal inflation `d * (1 + small_val)` and output formats match the
 reference exactly for golden compatibility.
 """
@@ -67,7 +67,7 @@ def _run_grm(bed_prefix, kind, inv, small_val, out_fmt, impute_seed,
     else:
         kin = np.asarray(dominance_grm(jnp.asarray(geno), small_val))
         suffix, inv_suffix = ".dgrm_as", ".dgiv_as"
-    ids = np.array(bed.fam["iid"])
+    ids = bed.iids
     write_grm(kin, ids, bed_prefix + suffix, out_fmt)
     kin_inv = None
     if inv:
@@ -127,7 +127,7 @@ def ginbreedcoef(bed_prefix: str, impute_seed: int = 0):
         geno = impute_geno(geno, seed=impute_seed)
     homo_f, grm_f1, grm_f2 = (np.asarray(a) for a in _inbreed_stats(jnp.asarray(geno)))
     df = pd.DataFrame(
-        {"id": np.array(bed.fam["iid"]), "homo_F": homo_f,
+        {"id": bed.iids, "homo_F": homo_f,
          "grm_F1": grm_f1, "grm_F2": grm_f2}
     )
     df.to_csv(bed_prefix + ".ginbreedcoef", sep=" ", header=True, index=False)

@@ -9,8 +9,8 @@ PLINK 2-bit codes {0b00, 0b01, 0b10, 0b11} -> {0, missing, 1, 2}
    host-side fast path, replacing the reference's cffi `_cread_plink_bed`.
 2. pure-numpy bit-twiddling fallback (no build step required).
 3. `unpack_codes_device` — a jitted jnp unpacker taking the *raw packed bytes*
-   so genotypes cross host->device 16x compressed and are expanded on-chip.
-   This is the TPU-native path; the reference has no equivalent.
+   so genotypes cross host->device 16x compressed and are expanded on the
+   device.  The reference has no equivalent.
 
 `read_plink` mirrors the reference API (`process_plink/process_plink.py:7-9`):
 returns a (num_id, num_snp) float array with NaN for missing genotypes.
@@ -18,13 +18,14 @@ returns a (num_id, num_snp) float array with NaN for missing genotypes.
 from __future__ import annotations
 
 import ctypes
-import os
+import logging
 import subprocess
 from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
-import pandas as pd
+
+from gmat_tpu.io.text import count_records
 
 _CSRC = Path(__file__).resolve().parents[2] / "csrc"
 _LIB_PATH = _CSRC / "libgmat_native.so"
@@ -68,14 +69,13 @@ def _load_native():
             ctypes.POINTER(ctypes.c_ubyte),
         ]
         _lib = lib
-    except Exception:
+    except (OSError, AttributeError, subprocess.CalledProcessError) as exc:
+        detail = getattr(exc, "stderr", b"") or b""
+        logging.getLogger(__name__).warning(
+            "native .bed decoder unavailable, using numpy: %r %s", exc,
+            detail.decode(errors="replace").strip())
         _lib = None
     return _lib
-
-
-def count_lines(path: str | os.PathLike) -> int:
-    with open(path, "rb") as f:
-        return sum(chunk.count(b"\n") for chunk in iter(lambda: f.read(1 << 20), b""))
 
 
 @dataclass
@@ -83,15 +83,29 @@ class Bed:
     """PLINK fileset handle: `<prefix>.bed/.bim/.fam`.
 
     Reference equivalent: `process_plink/read_plink_bed.py:6-28` (class Bed).
+    The counts and individual ids need numpy only; the `bim`/`fam` tables
+    are pandas DataFrames, read on first access.
     """
 
     prefix: str
 
     def __post_init__(self):
-        self.bim = read_bim(self.prefix + ".bim")
-        self.fam = read_fam(self.prefix + ".fam")
-        self.num_snp = len(self.bim)
-        self.num_id = len(self.fam)
+        self.num_snp = count_records(self.prefix + ".bim")
+        self.num_id = count_records(self.prefix + ".fam")
+
+    @property
+    def bim(self):
+        return read_bim(self.prefix + ".bim")
+
+    @property
+    def fam(self):
+        return read_fam(self.prefix + ".fam")
+
+    @property
+    def iids(self) -> np.ndarray:
+        """Individual ids (second `.fam` column), as strings."""
+        with open(self.prefix + ".fam") as fin:
+            return np.array([line.split()[1] for line in fin if line.strip()])
 
     def read(self, dtype=np.float64) -> np.ndarray:
         """Decode to a dense (num_id, num_snp) array, NaN for missing."""
@@ -102,13 +116,19 @@ class Bed:
         return read_bed_raw(self.prefix + ".bed", self.num_id, self.num_snp)
 
 
-def read_bim(path: str) -> pd.DataFrame:
+def read_bim(path: str):
+    """The `.bim` table as a pandas DataFrame."""
+    import pandas as pd
+
     df = pd.read_csv(path, sep=r"\s+", header=None)
     df.columns = ["chro", "snp_ID", "cm", "pos", "allele1", "allele2"][: df.shape[1]]
     return df
 
 
-def read_fam(path: str) -> pd.DataFrame:
+def read_fam(path: str):
+    """The `.fam` table as a pandas DataFrame."""
+    import pandas as pd
+
     df = pd.read_csv(path, sep=r"\s+", header=None)
     cols = ["fid", "iid", "father", "mother", "sex", "pheno"]
     df.columns = cols[: df.shape[1]] + list(df.columns[len(cols):])
@@ -208,12 +228,13 @@ def impute_geno(snp_mat: np.ndarray, seed: int = 0) -> np.ndarray:
     return snp_mat
 
 
-def write_bed(prefix: str, geno: np.ndarray, bim: pd.DataFrame | None = None,
-              fam: pd.DataFrame | None = None) -> None:
+def write_bed(prefix: str, geno: np.ndarray, bim=None, fam=None) -> None:
     """Write a (num_id, num_snp) {0,1,2,NaN} genotype array as a PLINK fileset.
 
     Used by `shuffle_bed` and the simulators; the reference relied on the
     optional pysnptools dependency for this (process_plink.py:28-47).
+    `bim`/`fam` are DataFrames to write as they are; when omitted, numbered
+    placeholder records are written (with numpy only).
     """
     num_id, num_snp = geno.shape
     code_lut = {0.0: 0, 1.0: 2, 2.0: 3}
@@ -236,29 +257,16 @@ def write_bed(prefix: str, geno: np.ndarray, bim: pd.DataFrame | None = None,
         f.write(_MAGIC)
         packed.tofile(f)
     if bim is None:
-        bim = pd.DataFrame(
-            {
-                "chro": np.ones(num_snp, dtype=int),
-                "snp_ID": [f"snp{i}" for i in range(num_snp)],
-                "cm": np.zeros(num_snp, dtype=int),
-                "pos": np.arange(1, num_snp + 1),
-                "allele1": ["A"] * num_snp,
-                "allele2": ["B"] * num_snp,
-            }
-        )
-    bim.to_csv(prefix + ".bim", sep="\t", header=False, index=False)
+        with open(prefix + ".bim", "w") as f:
+            f.writelines(f"1\tsnp{i}\t0\t{i + 1}\tA\tB\n"
+                         for i in range(num_snp))
+    else:
+        bim.to_csv(prefix + ".bim", sep="\t", header=False, index=False)
     if fam is None:
-        fam = pd.DataFrame(
-            {
-                "fid": [f"f{i}" for i in range(num_id)],
-                "iid": [f"i{i}" for i in range(num_id)],
-                "father": [0] * num_id,
-                "mother": [0] * num_id,
-                "sex": [0] * num_id,
-                "pheno": [-9] * num_id,
-            }
-        )
-    fam.to_csv(prefix + ".fam", sep="\t", header=False, index=False)
+        with open(prefix + ".fam", "w") as f:
+            f.writelines(f"f{i}\ti{i}\t0\t0\t0\t-9\n" for i in range(num_id))
+    else:
+        fam.to_csv(prefix + ".fam", sep="\t", header=False, index=False)
 
 
 def shuffle_bed(bed_prefix: str, seed: int = 0) -> str:

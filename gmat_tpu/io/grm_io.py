@@ -9,7 +9,8 @@ Formats (reference `gmatrix/gmatrix.py:10-31`):
 from __future__ import annotations
 
 import numpy as np
-import pandas as pd
+
+from gmat_tpu.io.text import write_rows
 
 
 def write_grm(mat: np.ndarray, ids: np.ndarray, out_prefix: str, out_fmt: str = "mat") -> str:
@@ -19,13 +20,13 @@ def write_grm(mat: np.ndarray, ids: np.ndarray, out_prefix: str, out_fmt: str = 
         return out_prefix + "0"
     ind = np.tril_indices_from(mat)
     if out_fmt == "row_col_val":
-        df = pd.DataFrame({"row": ind[0] + 1, "col": ind[1] + 1, "val": mat[ind]})
-        df.to_csv(out_prefix + "1", sep=" ", index=False, header=False)
+        with open(out_prefix + "1", "w") as f:
+            write_rows(f, ind[0] + 1, ind[1] + 1, mat[ind])
         return out_prefix + "1"
     if out_fmt == "id_id_val":
         ids = np.asarray(ids)
-        df = pd.DataFrame({"id0": ids[ind[0]], "id1": ids[ind[1]], "val": mat[ind]})
-        df.to_csv(out_prefix + "2", sep=" ", index=False, header=False)
+        with open(out_prefix + "2", "w") as f:
+            write_rows(f, ids[ind[0]], ids[ind[1]], mat[ind])
         return out_prefix + "2"
     raise ValueError(f"unrecognized GRM output format: {out_fmt!r}")
 
@@ -46,11 +47,15 @@ def read_grm_id_id_val(path: str, ids) -> np.ndarray:
     pos = {v: k for k, v in enumerate(ids)}
     n = len(ids)
     mat = np.zeros((n, n))
-    df = pd.read_csv(path, sep=r"\s+", header=None, dtype=str)
-    for id0, id1, val in df.itertuples(index=False):
-        if id0 in pos and id1 in pos:
-            i, j = pos[id0], pos[id1]
-            mat[i, j] = mat[j, i] = float(val)
+    with open(path) as fin:
+        for line in fin:
+            arr = line.split()
+            if len(arr) < 3:
+                continue
+            id0, id1, val = arr[:3]
+            if id0 in pos and id1 in pos:
+                i, j = pos[id0], pos[id1]
+                mat[i, j] = mat[j, i] = float(val)
     return mat
 
 

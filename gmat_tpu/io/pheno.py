@@ -6,7 +6,7 @@ Parity target: reference `uvlmm/design_matrix.py:7-113`
 covariates between, phenotype last; repeated records per individual allowed;
 records ordered by the .fam file; 'NA'/'NaN'/'nan'/'na' phenotypes dropped.
 
-TPU-native design: the reference materializes the random-effect incidence Z
+Design: the reference materializes the random-effect incidence Z
 as a scipy csr_matrix.  Here Z is represented by an integer *record->column*
 index vector (`rec_ids`): Z @ A == A[rec_ids] (gather) and Z.T @ B ==
 segment_sum(B, rec_ids) — both native XLA ops that fuse and shard, with no

@@ -15,7 +15,7 @@ Algorithm parity: `balance_emai` + `pre_fdai_mat_eigen_glm` + `pre_em_mat_eigen`
 + the Cholesky-gated EM-weight search (balance_emai.py:13-84,
 iter_mat.py:500-587,294-319, pre_mat.py:123-146).
 
-TPU-first: the reference's per-parameter Python loop over 3-D numpy batches
+Design: the reference's per-parameter Python loop over 3-D numpy batches
 becomes stacked einsums over (n, T, T) arrays inside one jitted step; the
 whole EM-weight grid (default 1001 candidates) is a batched solve + batched
 Cholesky validity scan.
@@ -29,7 +29,6 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pandas as pd
 from scipy import linalg as sla
 
 from gmat_tpu import config  # noqa: F401
@@ -211,6 +210,8 @@ def balance_emai(y, xmat, leg_tp, kin_eigen_val, init, maxiter=30,
                  cc_par=1.0e-8, cc_gra=1.0e-6, em_weight_step=0.02):
     """Core REML loop; returns the tidy (vari, varij, varik, var_val) frame
     (reference balance_emai.py:13-84)."""
+    import pandas as pd
+
     y = np.asarray(y, dtype=np.float64)
     if y.ndim == 3:
         y = y[:, :, 0]

@@ -13,10 +13,10 @@ Parity targets:
   shuffle individual rows of the SNP matrix per replicate (seeded here) and
   rerun, one result file per replicate.
 
-TPU-first: the reference loops SNPs in Python, one small REML per iteration.
+Design: the reference loops SNPs in Python, one small REML per iteration.
 Here the *entire per-SNP REML* (fori_loop over iterations, batched EM-weight
 search, convergence masking) is vmapped over SNP batches — hundreds of SNPs
-iterate in lockstep on the MXU; the trans test is three einsums for ALL SNPs.
+iterate in lockstep; the trans test is three einsums for ALL SNPs.
 """
 from __future__ import annotations
 
@@ -26,7 +26,6 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pandas as pd
 
 from gmat_tpu.core.stats import chi2_sf
 from gmat_tpu.longwas.balance import (
@@ -41,19 +40,18 @@ logger = logging.getLogger(__name__)
 
 
 def _resolve_dtype(precision: str):
-    """Compute dtype for the longwas test statistics: 'auto' -> float32 on
-    TPU (float64 is software-emulated there and these tests are
-    small-matrix dense — (T, T) per-id inverses, (p+k)-sized solves — so
-    f32 hardware compute wins ~an order of magnitude), float64 elsewhere.
+    """Compute dtype for the longwas test statistics: 'auto' -> float64 on
+    every device; 'f32' is the explicit reduced-precision path.
     GMAT_TPU_LONGWAS=f32|f64 overrides.  Calls are traced under
-    `jax.default_matmul_precision("float32")` so TPU f32 contractions run
-    bf16x3 (exact f32), keeping the golden-gated parity band (tests pin
-    the f32 path against the reference f64 goldens)."""
+    `jax.default_matmul_precision("float32")` so f32 contractions run in
+    full float32 (no TF32/bf16 operand rounding), keeping the golden-gated
+    parity band (tests pin the f32 path against the reference f64
+    goldens)."""
     import os
 
     mode = os.environ.get("GMAT_TPU_LONGWAS", precision).lower()
     if mode == "auto":
-        mode = "f32" if jax.default_backend() == "tpu" else "f64"
+        mode = "f64"
     if mode not in ("f32", "f64"):
         raise ValueError(f"unknown longwas precision {mode!r}")
     return np.float32 if mode == "f32" else np.float64
@@ -111,7 +109,7 @@ def _chol_pd_unrolled(cov):
     """PD test for (..., k, k) batches via the UNROLLED Cholesky
     recurrence (static small k): k(k+1)/2 elementwise ops instead of one
     LAPACK Cholesky call per batch element — the weight search tests
-    ~256k 4x4 candidates per REML iteration on the TPU."""
+    ~256k 4x4 candidates per REML iteration."""
     k = cov.shape[-1]
     tiny = jnp.asarray(np.finfo(np.dtype(cov.dtype)).tiny, cov.dtype)
     l: list = [[None] * k for _ in range(k)]
@@ -142,11 +140,9 @@ def _model_pieces(xmat, leg_tp, lam, cov_add, cov_per, res_var):
     V_i = lam_i * A + C with A = leg K_a leg' and C = leg K_p leg' + r I
     shared by every id — only the scalar kinship eigenvalue lam_i varies.
     Whiten A by C = M M' and eigendecompose W = M^-1 A M^-T = Q D Q';
-    with U = M^-T Q,  V_i^-1 = U diag(1/(lam_i d + 1)) U'.  The direct
-    form ran a batched LU inverse over every (SNP, id) pair — measured
-    1.50 s per (256, 1212, 16, 16) batch on this TPU, ~85% of the whole
-    fixed test's runtime, vs ~55 ms for the batched 16x16
-    cholesky+eigh pair (tools/bench_longwas_profile.py)."""
+    with U = M^-T Q,  V_i^-1 = U diag(1/(lam_i d + 1)) U'.  This replaces
+    a batched LU inverse over every (SNP, id) pair with one small
+    cholesky+eigh pair."""
     from jax.scipy.linalg import solve_triangular
 
     t = leg_tp.shape[0]
@@ -242,8 +238,8 @@ def _emai_single(y, xmat, leg_tp, lam, var0, tit, is_add, jj, kk, gammas,
         # one Cholesky of em + one symmetric eigendecomposition of the
         # whitened pencil A' = L^-1 ai L^-T (em = L L^T):
         #   delta(g) = L^-T Q diag(1/((1-g) lam + g)) Q^T L^-1 fd
-        # O(k^2) per gamma instead of a k^3 LU each — the vmapped-solve
-        # form ran 256k batched 21x21 LUs per REML iteration on the TPU.
+        # O(k^2) per gamma instead of a k^3 LU each (the vmapped-solve
+        # form ran 256k batched 21x21 LUs per REML iteration).
         # A non-PD blend ((1-g) lam + g <= 0) yields an exploded/NaN
         # delta, which the PD candidate gate below rejects exactly like
         # the LU form's singular solve.
@@ -307,6 +303,8 @@ def balance_longwas_fixed(data_file, id_col, tpoint, trait, kin_file,
                           em_weight_step=0.001,
                           prefix_outfile="balance_longwas_fixed",
                           snp_batch=64, _snp_shuffle=None, precision="auto"):
+    import pandas as pd
+
     if tfix is not None or fix is not None:
         raise NotImplementedError("tfix/fix must be None (reference parity)")
     dt = _resolve_dtype(precision)
@@ -361,7 +359,7 @@ def balance_longwas_fixed(data_file, id_col, tpoint, trait, kin_file,
         pad = snp_batch - block.shape[1]
         if pad:
             block = np.pad(block, ((0, 0), (0, pad)), mode="edge")
-        # bf16x3 (exact f32) contractions on TPU; no-op elsewhere
+        # full-float32 contractions (no TF32/bf16 operand rounding)
         with jax.default_matmul_precision("float32"):
             res = batch_fn(jnp.asarray(block))
         for k, v in zip(out, res):
@@ -525,6 +523,8 @@ def balance_longwas_fixed_permutation(data_file, id_col, tpoint, trait,
                                       prefix_outfile="balance_longwas_fixed_permutation"):
     """Permutation replicates of the fixed test (reference
     balance_longwas_fixed_permutation.py; seeded here)."""
+    import pandas as pd
+
     data = pd.read_csv(data_file, sep=r"\s+", header=0)
     n_id = len(data.dropna())
     return _permutation_driver(
@@ -542,6 +542,8 @@ def balance_longwas_trans_permutation(data_file, id_col, tpoint, trait,
                                       forder=3, rorder=3, na_method="omit",
                                       seed=0,
                                       prefix_outfile="balance_longwas_trans_permutation"):
+    import pandas as pd
+
     data = pd.read_csv(data_file, sep=r"\s+", header=0)
     n_id = len(data.dropna())
     return _permutation_driver(

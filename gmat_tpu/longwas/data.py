@@ -17,12 +17,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
-import pandas as pd
 
 
 @dataclass
 class LongData:
-    df: pd.DataFrame
+    df: "pandas.DataFrame"  # noqa: F821
     class_vec: list
     code_dct: dict  # factor -> raw value -> 1-based code
     id_col: str
@@ -41,6 +40,8 @@ class LongData:
 
 
 def parse_long_data(data_file: str, id_col: str, na_method: str = "omit") -> LongData:
+    import pandas as pd
+
     df = pd.read_csv(data_file, sep=r"\s+", header=0)
     if na_method == "omit":
         df = df.dropna().reset_index(drop=True)

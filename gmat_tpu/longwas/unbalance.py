@@ -17,10 +17,10 @@ pre_mat.py:11-29), including the reference's quirk that a non-PD AI matrix
 silently degrades the blended update to a pure EM step (pre_ai_mat returns
 False, and (1-gamma)*False == 0).
 
-TPU-first: Z matrices never materialize — every Z product is a gather /
+Design: Z matrices never materialize — every Z product is a gather /
 segment_sum keyed by the record->individual index; the dense MME coefficient
 matrix is assembled blockwise on device and inverted once per iteration (the
-single O(D^3) hot op, MXU-bound); fd/AI/EM and the EM-weight grid are batched
+single O(D^3) hot op); fd/AI/EM and the EM-weight grid are batched
 einsums inside the same jitted step.
 """
 from __future__ import annotations
@@ -32,7 +32,6 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pandas as pd
 from jax.ops import segment_sum
 from scipy import linalg as sla
 
@@ -318,6 +317,8 @@ def _iter_step(pieces: _MmePieces, kin_inv, covi_a, covi_p, var_e, var_com,
 def unbalance_emai(model: UnbalanceModel, init=None, maxiter=30,
                    cc_par=1.0e-8, cc_gra=1.0e-6, em_weight_step=0.001):
     """MME-based EM+AI driver (reference unbalance_emai.py:15-135)."""
+    import pandas as pd
+
     cd_a = model.leg_a.shape[1]
     cd_p = model.leg_p.shape[1]
     ntr_a, ntr_p, vari, varij, varik = _var_layout(cd_a, cd_p)

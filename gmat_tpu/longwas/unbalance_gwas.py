@@ -10,7 +10,7 @@ Parity targets:
   and qpymat = Z_aᵀ P y once; per SNP the kron(K_a, sᵀ) retransformation.
 - permutation twins: shuffle individual rows of the SNP matrix per replicate.
 
-TPU-first: V assembly is three einsums (no kron materialization); the
+Design: V assembly is three einsums (no kron materialization); the
 per-SNP loops are vmapped batches; Z products are segment_sums.
 """
 from __future__ import annotations

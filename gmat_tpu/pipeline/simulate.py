@@ -18,7 +18,6 @@ from __future__ import annotations
 import logging
 
 import numpy as np
-import pandas as pd
 
 from gmat_tpu.core.coding import additive_code, dominance_code
 from gmat_tpu.scan.common import prepare_genotypes
@@ -27,6 +26,8 @@ logger = logging.getLogger(__name__)
 
 
 def _load_effects(path, ncol):
+    import pandas as pd
+
     df = pd.read_csv(path, header=None, sep=r"\s+")
     return df
 

@@ -9,7 +9,7 @@ Algorithm parity with the reference `_wemai_multi_gmat`
   w ∈ {0, .01, …, 1} whose blended update keeps all variances positive;
 - dual convergence on ‖Δ‖/‖σ²‖ < cc_par and ‖∇‖ < cc_gra.
 
-TPU-first re-design inside one jitted step:
+Re-design inside one jitted step:
 - V⁻¹ and log|V| from a single Cholesky (reference pays slogdet + LU inv);
 - trace terms as Frobenius inner products ⟨P, ZG_iZᵀ⟩ (O(n²) each instead of
   the reference's O(n³) matmul-then-trace);
@@ -21,12 +21,12 @@ TPU-first re-design inside one jitted step:
 The iteration loop stays on the host (compiled step reused every iteration)
 so per-round logging matches the reference's observability contract.
 
-Precision: on CPU the step runs float64 end-to-end (bit-level parity with
-the reference's fully-f64 math).  On TPU — where f64 is emulated and the
-O(n³) inverse would never touch the MXU — `precision="auto"` switches the
-inverse to `core.linalg.mixed_inv_psd` (f32 MXU Cholesky + split-precision
-Newton refinement) while every O(n²) reduction that shapes the update
-direction stays f64 elementwise.  GMAT_TPU_REML=mixed|f64 overrides.
+Precision: `precision="auto"` (the default) runs the step float64
+end-to-end on every device (bit-level parity with the reference's fully-f64
+math).  `precision="mixed"` switches the O(n³) inverse to
+`core.linalg.mixed_inv_psd` (f32 Cholesky + split-precision Newton
+refinement) while every O(n²) reduction that shapes the update direction
+stays f64 elementwise.  GMAT_TPU_REML=mixed|f64 overrides the argument.
 """
 from __future__ import annotations
 
@@ -56,7 +56,7 @@ def _reml_step(var_com, y, xmat, zg_stack, mixed=False):
     k = zg_stack.shape[0]
     vmat = jnp.einsum("k,kij->ij", var_com[:-1], zg_stack)
     vmat = vmat + var_com[-1] * jnp.eye(n, dtype=vmat.dtype)
-    # mixed: the O(n³) inverse runs as f32 Cholesky on the MXU + Newton
+    # mixed: the O(n³) inverse runs as an f32 Cholesky + Newton
     # refinement (core/linalg.mixed_inv_psd); every O(n²) reduction that
     # shapes the update direction stays float64 elementwise
     vinv, ll_v = mixed_inv_psd(vmat) if mixed else chol_inv_logdet(vmat)
@@ -84,10 +84,8 @@ def _reml_step(var_com, y, xmat, zg_stack, mixed=False):
         a = (1.0 - w) * ai + w * em
         if not mixed:
             return jnp.linalg.solve(a, fd)
-        # TPU rejects batched f64 LU ("Only F32 and C64 ... in
-        # LuDecomposition"); these (k+1)-sized SPD blends solve exactly in
-        # f32 + two f64-residual refinements (the residual matvec is a
-        # tiny elementwise-f64 op)
+        # these (k+1)-sized SPD blends solve in f32 + two f64-residual
+        # refinements (the residual matvec is a tiny elementwise-f64 op)
         a32 = a.astype(jnp.float32)
         x = jnp.linalg.solve(a32, fd.astype(jnp.float32)).astype(a.dtype)
         for _ in range(2):
@@ -109,16 +107,15 @@ def _reml_step(var_com, y, xmat, zg_stack, mixed=False):
 
 
 def _resolve_precision(precision: str) -> bool:
-    """True = mixed-precision (f32 MXU Cholesky + Newton refinement).
+    """True = mixed-precision (f32 Cholesky + Newton refinement).
 
-    `precision`: "mixed", "f64", or "auto" (the default: mixed on TPU —
-    where f64 is emulated and the f64 path never touches the MXU — and
-    f64 elsewhere).  The GMAT_TPU_REML env var overrides the argument."""
+    `precision`: "mixed", "f64", or "auto" (the default, = "f64" on every
+    device).  The GMAT_TPU_REML env var overrides the argument."""
     import os
 
     mode = os.environ.get("GMAT_TPU_REML", precision).lower()
     if mode == "auto":
-        mode = "mixed" if jax.default_backend() == "tpu" else "f64"
+        mode = "f64"
     if mode not in ("mixed", "f64"):
         raise ValueError(f"unknown REML precision {mode!r}")
     return mode == "mixed"

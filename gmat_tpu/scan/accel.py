@@ -7,10 +7,10 @@ cupy, computes `eff = epi_matᵀ · pymat` per anchor, keeps `|eff| > eff_cut`,
 writes the rows with `np.savetxt(header='snp_0 snp_1 eff')` and returns the
 kept (snp_0, snp_1, eff) float array.
 
-Here the accelerator is the TPU and the whole scan is the production MXU
-screen (gmat_tpu/scan/screen.py) — one compiled program per phase instead of
-a per-anchor host loop, so `max_test_pair` column streaming is unnecessary
-(accepted and ignored; genotype panels live in HBM, not GPU RAM).  The
+Here the whole scan is the production screen (gmat_tpu/scan/screen.py) —
+one compiled program per phase instead of a per-anchor host loop, with the
+genotype panel resident in device memory, so `max_test_pair` column
+streaming is unnecessary (accepted and ignored).  The
 default `eff_cut=-999.0` keeps every pair, exactly like the reference.
 
 Note the reference's gpu signature has no `zmat`: one record per individual
@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 
 from gmat_tpu.io.pheno import DesignMatrices
-from gmat_tpu.scan.common import prepare_genotypes, score_pieces
+from gmat_tpu.scan.common import imputed_genotypes, score_pieces
 
 
 def remma_epiAA_eff_gpu(y, xmat, gmat_lst, var_com, bed_file, snp_lst_0=None,
@@ -38,14 +38,14 @@ def remma_epiAA_eff_gpu(y, xmat, gmat_lst, var_com, bed_file, snp_lst_0=None,
     from gmat_tpu.core.coding import additive_code
     from gmat_tpu.scan.screen import _run_screen
 
-    del max_test_pair  # column-block streaming knob; not needed on TPU
+    del max_test_pair  # column-block streaming knob; the panel is resident
     y = np.asarray(y, float).reshape(-1)
     n = y.shape[0]
     xmat = np.asarray(xmat, float).reshape(n, -1)
     dm = DesignMatrices(y=y, xmat=xmat,
                         rec_ids=np.arange(n, dtype=np.int32), n_col=n)
     pieces = score_pieces(dm, gmat_lst, var_com)
-    geno, _, _ = prepare_genotypes(bed_file)
+    geno = imputed_genotypes(bed_file)
     m = geno.shape[1]
     mat = additive_code(jnp.asarray(geno))[0].astype(jnp.float32)
     py = pieces.pymat.astype(jnp.float32)

@@ -8,7 +8,7 @@ __init__.py:4-5`, `remma_epiAA/__init__.py:8-11`, `uvlmm/__init__.py:1`):
 all taking (y, xmat, zmat) directly instead of a phenotype file.  Users
 migrating from the reference import these names, so they are provided here
 with the reference's signatures and output-file defaults, delegating to the
-same MXU engines as the file-level API.
+same engines as the file-level API.
 
 `zmat` may be a scipy-sparse incidence matrix, a dense 0/1 array, or a
 DesignMatrices (see scan/legacy.py:_as_dm).

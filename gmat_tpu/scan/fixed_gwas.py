@@ -11,7 +11,7 @@ Parity targets:
 - `lm_snp_eff` / `lm_pred` (uvlmm/lm.py:11-54): per-SNP OLS effects and a
   naive GBLUP-ish prediction.
 
-TPU-first: the reference loops SNPs in Python with a fresh (p+1)x(p+1)
+Design: the reference loops SNPs in Python with a fresh (p+1)x(p+1)
 inverse each (uvlmm_gwas.py:44-52).  By partitioned regression the added
 coefficient is eff = (sᵀPy)/(sᵀPs) with P the fixed-effects projection of
 V^-1 — the entire panel is two GEMMs.  The pair scan reuses the anchor-tile
@@ -24,7 +24,6 @@ import logging
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pandas as pd
 
 from gmat_tpu.core.coding import additive_code, dominance_code
 from gmat_tpu.core.linalg import chol_inv_logdet, projection_pieces
@@ -253,6 +252,8 @@ def uvlmm_gwas_epiAA(y, xmat, gmat_lst, var_com, bed_prefix, snp_lst_0=None,
                      p_cut=1.0, out_file=None):
     """Exhaustive fixed-effect interaction scan (uvlmm_gwas.py:145-198).
     Returns rows (snpi, snpj, snp_eff, p_val) with j > i."""
+    import pandas as pd
+
     y = jnp.asarray(np.asarray(y, float).reshape(-1))
     xmat = jnp.asarray(np.asarray(xmat, float).reshape(y.shape[0], -1))
     gstack = jnp.stack([jnp.asarray(np.asarray(g, float)) for g in gmat_lst])

@@ -301,7 +301,7 @@ def remma_epiDD_eff_cpu(y, xmat, zmat, gmat_lst, var_com, bed_file,
 
 # the reference's `_eff_cpu_c` twins differ from `_eff_cpu` only in being
 # C-accelerated (remma_epiAA_cpu.py:320+); here both names hit the same
-# MXU screen engine
+# screen engine
 remma_epiAA_eff_cpu_c = remma_epiAA_eff_cpu
 remma_epiAD_eff_cpu_c = remma_epiAD_eff_cpu
 remma_epiDD_eff_cpu_c = remma_epiDD_eff_cpu

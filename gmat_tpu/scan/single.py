@@ -8,15 +8,15 @@ and `remma_dom` (remma_dom.py:15-96).  Per SNP j:
     eff_fixed_j = eff_j σ²_g / (var_j · scale)
     chi_j = eff_j² / var_j,  p_j = P[χ²₁ > chi_j]
 
-The whole SNP axis is two GEMMs on the MXU — the reference's loop-free numpy
-form maps directly (remma_add.py:59-63).
+The whole SNP axis is two GEMMs — the reference's loop-free numpy form maps
+directly (remma_add.py:59-63).  The result is a pandas DataFrame, so pandas
+is imported by these functions only.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pandas as pd
 
 from gmat_tpu.core.coding import additive_code, dominance_code
 from gmat_tpu.core.stats import chi2_sf
@@ -55,14 +55,14 @@ def _run_single(pheno_file, bed_prefix, gmat_lst, var_com, coding, sigma2,
 
 
 def remma_add(pheno_file: str, bed_prefix: str, gmat_lst, var_com,
-              out_file: str = "remma_add") -> pd.DataFrame:
+              out_file: str = "remma_add"):
     """Additive single-SNP test; var_com[0] must be the additive variance."""
     return _run_single(pheno_file, bed_prefix, gmat_lst, var_com,
                        additive_code, var_com[0], out_file)
 
 
 def remma_dom(pheno_file: str, bed_prefix: str, gmat_lst, var_com,
-              out_file: str = "remma_dom") -> pd.DataFrame:
+              out_file: str = "remma_dom"):
     """Dominance single-SNP test; var_com[1] must be the dominance variance."""
     return _run_single(pheno_file, bed_prefix, gmat_lst, var_com,
                        dominance_code, var_com[1], out_file)

@@ -257,7 +257,8 @@ def test_common_helpers():
 
 
 def test_remma_epiAA_eff_gpu(tmp_path, legacy_setup, mouse_prefix):
-    """The remma_gpu surface (reference remma_epiAA_gpu.py:12-99) on TPU:
+    """The remma_gpu surface (reference remma_epiAA_gpu.py:12-99) on the
+    accelerator screen engine:
     keep-everything default + threshold filtering vs a direct f64 oracle."""
     import jax.numpy as jnp
 

@@ -88,15 +88,3 @@ def test_sampled_mutation_reuploads():
     e2 = devcache.device_put_cached(a)
     assert e2 is not e1
     np.testing.assert_array_equal(np.asarray(e2), a)
-
-
-def test_unpack_sym_reconstructs_exactly():
-    """Triangle-packed symmetric upload: the on-device reconstruction must
-    be bit-exact for every (i, j)."""
-    rng = np.random.default_rng(5)
-    for n in (1, 3, 17, 64):
-        a = rng.standard_normal((n, n))
-        a = a + a.T
-        packed = a[np.triu_indices(n)]
-        got = np.asarray(devcache._unpack_sym(packed, n))
-        np.testing.assert_array_equal(got, a)

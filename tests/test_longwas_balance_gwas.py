@@ -103,9 +103,9 @@ def test_fixed_golden(setup, tmp_path):
     ("fixed", balance_longwas_fixed, 5e-2),
 ])
 def test_f32_precision_band(setup, tmp_path, which, fn, band):
-    """The TPU compute path (precision='f32', bf16x3 contractions) must
-    track the reference f64 goldens within its documented band (VERDICT
-    r4 #5).  Measured on this fixture (2026-08): trans deviates <= 7e-5
+    """The reduced-precision path (precision='f32', full-float32
+    contractions) must track the reference f64 goldens within its
+    documented band.  Measured on this fixture (CPU): trans deviates <= 7e-5
     relative on chi/p (single linear solve), fixed <= 1.3e-2 (10 REML
     iterations accumulate f32 drift); bands are ~5x above measurement."""
     kin_file, var_df, _ = setup

@@ -86,8 +86,8 @@ def _assert_mixed_endpoint(dm, gmat_lst, gold):
 )
 def test_reml_mixed_precision_parity(mouse_pheno, mouse_prefix, grms, key,
                                      build):
-    """The TPU mixed-precision path (f32 MXU Cholesky + split-precision
-    Newton refinement, core/linalg.mixed_inv_psd) must land on a point the
+    """The mixed-precision path (f32 Cholesky + split-precision Newton
+    refinement, core/linalg.mixed_inv_psd) must land on a point the
     f64 path itself accepts as converged, at the golden values."""
     gold = np.load(GOLDEN / "reml_var.npz")[key]
     ag, dg = grms
@@ -98,7 +98,7 @@ def test_reml_mixed_precision_parity(mouse_pheno, mouse_prefix, grms, key,
 @pytest.mark.slow
 def test_reml_mixed_repeated_measures(mouse_prefix, grms):
     """Mixed-precision parity on the yeast-style repeated-records config
-    (the shape the TPU path exists for)."""
+    (the shape the mixed path exists for)."""
     gold = np.load(GOLDEN / "reml_repeat.npz")
     ag, _ = grms
     pe = np.eye(ag.shape[0])
@@ -117,7 +117,7 @@ def test_wemai_file_wrapper(tmp_path, mouse_pheno, mouse_prefix, grms):
 
 def test_reml_repeated_measures(mouse_prefix, grms):
     """yeast-style config [ag, ag*ag, pe] with repeated records per individual
-    (BASELINE.md target 1; pe = identity over individuals)."""
+    (pe = identity over individuals)."""
     gold = np.load(GOLDEN / "reml_repeat.npz")
     ag, _ = grms
     pe = np.eye(ag.shape[0])
@@ -130,7 +130,7 @@ def test_reml_repeated_measures(mouse_prefix, grms):
 
 def test_reml_mixed_trajectory_tracks_f64(mouse_pheno, mouse_prefix, grms):
     """Iterate-LEVEL mixed-precision evidence (VERDICT r4 #7): the mixed
-    path (f32 MXU Cholesky + split-precision Newton, core/linalg) must
+    path (f32 Cholesky + split-precision Newton, core/linalg) must
     track the f64 trajectory at every iteration, not just the endpoint.
     Measured on this config (2026-08): per-iterate max relative variance
     deviation <= 1.7e-5 and -2logL deviation <= 1.3e-3 absolute (~6e-7

@@ -1,4 +1,4 @@
-"""Effect screen + approximate pipeline: the f32 MXU screen must find exactly
+"""Effect screen + approximate pipeline: the f32 screen must find exactly
 the pairs the exact f64 effect computation puts above threshold (away from
 the float32 borderline), and the approx pipeline must reproduce the
 reference's file contract."""
